@@ -1,8 +1,8 @@
 """Collective-cost trend vs mesh size P on the virtual CPU mesh.
 
-VERDICT r2 item 7: the >=80% multi-host scaling bar was model-only; nothing
-measured how collective time GROWS with P.  Absolute CPU-mesh numbers are
-meaningless for TPU, but the TREND (per-batch overhead of the psum merge as
+The >=80% multi-host scaling bar (BASELINE.md) was model-only; nothing
+measured how collective time GROWS with P.  Absolute CPU-mesh numbers say
+nothing about a GPU, but the TREND (per-batch overhead of the psum merge as
 P doubles, against the dp-mode zero-collective baseline) is the shape the
 model needs: the psum payload is O(windows) for the labels kind and
 O(reads*targets) for counts, both independent of P per device, so healthy
@@ -80,7 +80,7 @@ def main(n_keys=200_000, k=27, T=500, R=512, S=256):
 
     # psum-only microbenchmark: the labels merge is ONE psum of [R*S] i32
     # partials, the counts merge ONE psum of [R*(T+1)] i32 — payload is
-    # P-independent per device, so on dedicated ICI links the cost is
+    # P-independent per device, so on dedicated NVLink links the cost is
     # ~flat in P (ring all-reduce moves 2(P-1)/P * payload per device);
     # on the shared-core CPU mesh it grows with P because all P virtual
     # devices share the same memory bandwidth

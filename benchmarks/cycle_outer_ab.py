@@ -1,4 +1,4 @@
-"""Cycle-outer multi-sample scheduling A/B (VERDICT r2 item 6's bar).
+"""Cycle-outer multi-sample scheduling A/B.
 
 8 samples classified against an out-of-core DB (db_cycles=3, labels
 strategy).  A: serial per-file runs (each sample streams the whole table
@@ -9,7 +9,7 @@ and every sample's batches run through it before advancing).
 Bar: B >= 1.8x A aggregate.  Reference behavior amortized:
 swapDbParts re-upload per cycle, CuClarkDB.cu:776-815.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python benchmarks/cycle_outer_ab.py
+Run: PYTHONPATH=. python benchmarks/cycle_outer_ab.py
 Env: CO_SAMPLES (8), CO_READS (8000 per sample), CO_KEYS_MBP (genome Mbp,
      default 16x3 -> ~46M keys reuses the bench config-2 cached DB if
      present under BENCH_CACHE_ROOT).
@@ -28,7 +28,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 CACHE = os.environ.get(
-    "BENCH_CACHE_ROOT", os.path.expanduser("~/.cache/jn_cuclark_tpu")
+    "BENCH_CACHE_ROOT",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "bench_cache"),
 )
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 

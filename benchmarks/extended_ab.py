@@ -1,4 +1,4 @@
-"""Extended-mode scoring A/B on the real chip (VERDICT r2 item 5's bar).
+"""Extended-mode scoring A/B on the device.
 
 Measures the full device step (classify_batch: window extraction + probe +
 scoring) for the three extended modes at T=500 and T=10000 targets:
@@ -13,7 +13,7 @@ Bar: extended device step <= 1.5x non-extended at T=500, and the T=10k
 case measured.  Replaces resultKernel-side count materialization
 (reference: CuClarkDB.cu:1361-1411).
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python benchmarks/extended_ab.py
+Run: PYTHONPATH=. python benchmarks/extended_ab.py
 """
 
 from __future__ import annotations

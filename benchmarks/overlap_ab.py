@@ -1,18 +1,16 @@
-"""Out-of-core chunk-upload overlap A/B (VERDICT r4 item 5).
+"""Out-of-core chunk-upload overlap A/B.
 
 Measures the cycled engine end-to-end at the RefSeq shape (cached
 refseq_5000x50000 workload, forced db_cycles=3, labels strategy) with the
 double-buffered chunk prefetch ON vs OFF, REP-INTERLEAVED in one process
-(on, off, on, off, ...) so relay drift hits both arms equally; medians +
-the fetch canary are reported so the number is attributable.
+(on, off, on, off, ...) so drift hits both arms equally; medians are
+reported.
 
 The overlap hides chunk j+1's host->device upload behind pass j's probes
 (swapDbParts parity, CuClarkDB.cu:776-815).  Upper bound for the ratio =
-(upload + compute) / max(upload, compute) per pass; on the relay the
-upload term dominates at ~0.7 GB/s H2D, on attached hosts (10+ GB/s) it
-nearly vanishes.
+(upload + compute) / max(upload, compute) per pass.
 
-Run:  PYTHONPATH=/root/repo python benchmarks/overlap_ab.py
+Run:  PYTHONPATH=. python benchmarks/overlap_ab.py
 Env:  OV_READS (250000), OV_REPS (3 per arm), RS_* as refseq_scale.
 Prints one JSON line.
 """

@@ -1,11 +1,11 @@
-"""RefSeq-shape scale run (BASELINE configs 3/5's missing half; VERDICT r2
-item 4): ~5000 targets x 50 kbp synthetic genomes -> ~250M distinct
-discriminative k-mers at k=31 (u32 on-disk quotients, full-profile HTSIZE),
-classified on the real chip with the auto memory budget, with forced
+"""RefSeq-shape scale run (BASELINE configs 3/5's missing half): ~5000
+targets x 50 kbp synthetic genomes -> ~250M distinct discriminative k-mers
+at k=31 (u32 on-disk quotients, full-profile HTSIZE), classified on the
+device with the auto memory budget, with forced
 out-of-core cycling (labels strategy), and optionally with the DB sharded
 over the virtual CPU mesh.
 
-Run:  PYTHONPATH=/root/repo:$PYTHONPATH python benchmarks/refseq_scale.py
+Run:  python benchmarks/refseq_scale.py   (or bench.py with BENCH_CONFIGS=5)
 Env:  RS_TARGETS (5000), RS_GLEN (50000), RS_READS (1000000),
       RS_MODES (comma of: plain,cycled,mesh)
 Prints one JSON line at the end; records host-memory high-water.
@@ -24,7 +24,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 
 CACHE = os.environ.get(
-    "BENCH_CACHE_ROOT", os.path.expanduser("~/.cache/jn_cuclark_tpu")
+    "BENCH_CACHE_ROOT",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "bench_cache"),
 )
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -92,7 +94,8 @@ def build_workload(td, n_targets, glen, n_reads, read_len=150):
     return tpath, reads_path
 
 
-def main():
+def run() -> dict:
+    """Build (or reuse) the workload and DB, classify, return the numbers."""
     global T0
     T0 = time.time()
     n_targets = int(os.environ.get("RS_TARGETS", "5000"))
@@ -165,7 +168,11 @@ def main():
         out["cycled_reads_per_sec"] = run(clf, "cycled", warm_frac=8)
         del clf
     out["host_maxrss_gb"] = maxrss_gb()
-    print(json.dumps(out), flush=True)
+    return out
+
+
+def main():
+    print(json.dumps(run()), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,18 +1,12 @@
-"""u64-argument vs interleaved-u32 probe A/B (round 5).
+"""u64-slot vs u32-halves probe A/B (ROADMAP S2 step 3).
 
-The dense_ab 800M-key run exposed that a u64 table passed as a jit
-argument is materialized TWICE on TPU: XLA inserts X64SplitHigh/Low
-custom-calls that copy the whole table into separate hi/lo u32 temp
-planes (an 8 GB table OOMed a 16 GB chip with "program 10.07G +
-arguments 8.03G").  Hypothesis: storing the table as the little-endian
-u32 VIEW (u64[rows, C] -> u32[rows, 2C], identical bytes, still ONE row
-gather) removes the split copies (halving the table's HBM residency)
-and replaces the VPU-emulated u64 xor/compare/max with native u32 ops.
+The table is stored as u32 contiguous halves (radix_table.py) because
+earlier hardware emulated u64 and split u64 jit arguments into hi/lo
+copies.  This compares the two layouts (identical bytes, ONE row gather
+each): compiled memory analysis (argument + temp bytes) and
+carry-perturbed chain timing.
 
-Measures, per layout: compiled memory analysis (argument + temp bytes)
-and carry-perturbed chain timing (docs/ROOFLINE.md §3.66).
-
-Run:  PYTHONPATH=/root/repo python benchmarks/u32_probe_ab.py
+Run:  PYTHONPATH=. python benchmarks/u32_probe_ab.py
 Env:  U32_AB_M1 (22 -> 4 GB table), U32_AB_Q (1<<21), U32_AB_SMALL=1.
 Prints one JSON line.
 """

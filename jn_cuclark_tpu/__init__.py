@@ -1,6 +1,6 @@
-"""jn_cuclark_tpu — TPU-native metagenomic classifier (CLARK family).
+"""jn_cuclark_tpu — GPU-accelerated metagenomic classifier (CLARK family).
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ardaicoz/jn_cuclark (CuCLARK + kent/kent-mpi): discriminative canonical k-mer
 database construction, FASTA/FASTQ read classification with gamma/confidence
 scoring, taxonomy-aware abundance estimation, multi-sample merge/report, and
@@ -16,19 +16,15 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent jit cache: TPU (re)compiles are expensive (~40s per batch shape
-# through a remote-compile service); cache them across processes.
-_cache_dir = _os.environ.get(
-    "CLARK_TPU_JIT_CACHE",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "jn_cuclark_tpu", "jit"),
+#: Persistent compile cache used when JAX_COMPILATION_CACHE_DIR is not set.
+#: The path is fixed (part of the cache key), inside the checkout, and
+#: listed in .gitignore.
+DEFAULT_COMPILE_CACHE = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
 )
-if _cache_dir and _cache_dir != "0":
-    try:
-        _os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_COMPILE_CACHE)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
 
 from . import params  # noqa: E402,F401
 

@@ -5,18 +5,19 @@ an INI config, launches itself under `mpirun` over SSH, runs `kent -c` +
 `kent -a` per rank, sends pipe-delimited NodeResult strings to rank 0, and
 merges abundances into results/cluster_report.txt.
 
-The TPU-native redesign keeps the same config format and report but replaces
+This redesign keeps the same config format and report but replaces
 MPI/SSH with JAX process semantics:
 
   * single-process mode (default): every node entry whose reads are readable
     from this machine is processed here, sequentially — this covers the
-    reference's practical use (multi-sample batch) on one TPU host, and is
+    reference's practical use (multi-sample batch) on one GPU host, and is
     how `kent-mpi`-style runs are tested without a cluster.
   * multi-process mode ([cluster] backend = jax_distributed): each host runs
-    the same command; `jax.distributed.initialize` forms the pod, each
+    the same command; `jax.distributed.initialize` joins the processes, each
     process classifies the reads assigned to ITS hostname, per-node results
-    are all-gathered over DCN with `jax.experimental.multihost_utils`, and
-    process 0 merges + writes the report.
+    are all-gathered over the network with
+    `jax.experimental.multihost_utils`, and process 0 merges + writes the
+    report.
 
 Result merging is abundance-level (CSV sums), exactly like the reference —
 the heavy data (DB, reads) never crosses hosts.
@@ -256,8 +257,8 @@ def run_sharded(cfg: ClusterConfig, log: ClusterLogger) -> list[NodeResult]:
     in HBM with db_cycles); every sample in [reads] is classified JOINTLY by
     all processes — each packs the same read batches (inputs must be
     readable on every host), probes its shard, and per-read counts merge
-    with a psum over DCN.  Process 0 writes the CSVs/abundance; the others
-    drain the same collective program."""
+    with a psum over the network.  Process 0 writes the CSVs/abundance; the
+    others drain the same collective program."""
     import jax
 
     from . import abundance, database
@@ -268,9 +269,9 @@ def run_sharded(cfg: ClusterConfig, log: ClusterLogger) -> list[NodeResult]:
     pid = jax.process_index()
     dbcfg = database.DBConfig.load(cfg.database)
     if cfg.dp > 1:
-        # 2-D: table rows over db = hosts (DCN), reads over each host's dp
-        # devices (ICI) — each device probes 1/dp of the batch against 1/db
-        # of the table
+        # 2-D: table rows over db = hosts (network), reads over each host's
+        # dp devices (NVLink) — each device probes 1/dp of the batch against
+        # 1/db of the table
         total = cfg.num_devices or len(jax.devices())
         if total % cfg.dp:
             raise ValueError(f"dp={cfg.dp} must divide device count {total}")
@@ -579,8 +580,8 @@ def _gather_results_master(
     simply never reports — its node entries are synthesized as FAILED and
     the run completes with a report, like the reference master's per-worker
     MPI_Recv + failure rows (kent_mpi.cpp:518-521, 712-727).  A collective
-    gather (the DCN allgather) would instead hang every surviving process
-    on the dead one."""
+    gather (the cross-host allgather) would instead hang every surviving
+    process on the dead one."""
     import struct
 
     timeout = float(
@@ -683,8 +684,8 @@ def _send_results_worker(
 
 
 def _allgather_results(results: list[NodeResult]) -> list[NodeResult]:
-    """Gather per-process NodeResults to every process over DCN (replaces the
-    reference's MPI_Send/Recv of pipe-delimited strings).
+    """Gather per-process NodeResults to every process over the network
+    (replaces the reference's MPI_Send/Recv of pipe-delimited strings).
 
     Payloads are arbitrary-size: a first all-gather agrees on the max byte
     length, then each process pads its JSON to that common size — no silent
@@ -719,6 +720,21 @@ def allgather_bytes(payload: bytes) -> list[bytes]:
         multihost_utils.process_allgather(arr, tiled=False)
     ).reshape(-1, cap)
     return [bytes(gathered[i, : int(n.flat[i])]) for i in range(gathered.shape[0])]
+
+
+def card_per_process(hosts: list[str], local_names: set[str]) -> list[str | None]:
+    """CUDA_VISIBLE_DEVICES for each launched process, or None to leave it
+    unset.  Process 0 runs on this machine, as does every worker named
+    like it; when several processes share a machine each gets its own card
+    (the k-th process there sees card k), because a JAX process reserves
+    most of every card it can see and a second one would run out of
+    memory.  A process alone on its machine sees all of its cards."""
+    local = local_names | {"localhost", "127.0.0.1", "::1"}
+    machine = ["" if i == 0 or h in local else h for i, h in enumerate(hosts)]
+    return [
+        str(machine[:i].count(m)) if machine.count(m) > 1 else None
+        for i, m in enumerate(machine)
+    ]
 
 
 def launch(cfg: ClusterConfig, log: ClusterLogger, conf_path: str) -> int:
@@ -759,7 +775,7 @@ def launch(cfg: ClusterConfig, log: ClusterLogger, conf_path: str) -> int:
         # process 0 (and the jax.distributed coordinator) runs HERE, but the
         # workers will dial <master>:12357 — only correct when this host IS
         # the configured master or coordinator_address points back here
-        log.warning(
+        log.warn(
             f"launching from {socket.gethostname()!r} but [cluster] master "
             f"= {cfg.master!r}: workers will connect to {coord}, which must "
             "reach THIS process. Launch from the master host or set "
@@ -794,13 +810,18 @@ def launch(cfg: ClusterConfig, log: ClusterLogger, conf_path: str) -> int:
         for line in proc.stdout:
             log.info(f"[{host}] {line.rstrip()}")
 
+    cards = card_per_process(hosts, local_names)
+
     def env_for(i, host):
-        return {
+        env = {
             "CLARK_TPU_NUM_PROCESSES": str(n),
             "CLARK_TPU_PROCESS_ID": str(i),
             "CLARK_TPU_NODE_NAME": host,
             "CLARK_TPU_COORDINATOR": coord,
         }
+        if cards[i] is not None:
+            env["CUDA_VISIBLE_DEVICES"] = cards[i]
+        return env
 
     try:
         for i, host in enumerate(hosts):

@@ -47,7 +47,7 @@ def write_db(
     key_dtype = profile.key_dtype(k)
     from ..utils import native
 
-    if 2 * k + 1 <= 64 and native.available() and native.has_serialize_db():
+    if 2 * k + 1 <= 64 and native.available():
         # fused native path: quotient/remainder + parallel (key, label)
         # sort + sequential .sz emit in one call — ~2.5x the numpy chain
         # below at 250M keys, byte-identical output.  Large tables use the
@@ -55,7 +55,7 @@ def write_db(
         # partition instead of a full-table copy (bounded host memory).
         n = len(canonical)
         pbits = 0
-        if n >= (1 << 24) and native.has_partitioned_build():
+        if n >= (1 << 24):
             pbits = min(
                 int(np.ceil(np.log2(max(n / (1 << 23), 2)))), 8
             )

@@ -1,8 +1,8 @@
 """Fused device classification pipeline (plain JAX, gather-minimal).
 
 windows-from-packed-words -> Jellyfish canonicalization -> radix-table probe
--> per-read counts -> top-2 results.  Everything except the 3 probe gathers
-is pure VPU work on [R, S] grids; window values are reconstructed with
+-> per-read counts -> top-2 results.  Everything except the probe's row
+gather is elementwise work on [R, S] grids; window values are reconstructed with
 `repeat` + shifts (no gathers), reproducing exactly the k-mer set the
 reference counts (all length-k windows of valid chars within a read,
 CuClarkDB.cu:1042-1117).
@@ -29,9 +29,8 @@ def window_canonicals(words, vwords, k: int, probe_cols: int | None = None):
     and the CALLER may trim further with `probe_cols` when it knows the
     batch's true maximum read length: stride quantization pads reads to
     the tier (e.g. 150 bp at stride 192 -> 162 probed slots but only 120
-    can be valid), and probing always-invalid pad columns is pure waste
-    (measured ~15% for the k-1 trim alone; up to ~26% more at
-    length-vs-tier worst cases).  The k-mer set is unchanged — trimmed
+    can be valid), and probing always-invalid pad columns is pure waste.
+    The k-mer set is unchanged — trimmed
     columns fail the validity mask by construction.
     """
     R, Wp1 = words.shape
@@ -145,8 +144,8 @@ def score_from_labels(lab, *, n_targets, extended):
     must psum/accumulate); "sorted" -> the SORTED label grid itself as u16
     [R, S] (top-2 reuses the same sort; the native formatter expands run
     lengths to per-target CSV columns) — O(windows) on device regardless of
-    target count, replacing the 41.8 ms dense segment-sum and the ~87 MB
-    per-batch count fetch (docs/ROOFLINE.md stage table)."""
+    target count, instead of the dense segment-sum and a per-batch count
+    fetch of 4*(T+1) bytes per read."""
     lab = lab.astype(jnp.int32)
     R, S = lab.shape
     if not extended:
@@ -199,8 +198,8 @@ def classify_batch(
     counts[R, T+1]).
 
     extended=False skips the dense count matrix (needed only for --extended
-    CSV columns) and takes the sort-runs top-2 path (score.top2_from_labels):
-    ~15x cheaper at 500 targets, bit-identical results; counts comes back as
+    CSV columns) and takes the sort-runs top-2 path (score.top2_from_labels,
+    bit-identical results); counts comes back as
     a [R, 0] placeholder.  probe_cols trims always-invalid pad columns
     before the probe (see window_canonicals)."""
     canon, valid = window_canonicals(words, vwords, k, probe_cols)

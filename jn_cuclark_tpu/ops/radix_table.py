@@ -1,16 +1,13 @@
-"""Fixed-slot hash table for TPU k-mer lookup — the hot-path index.
+"""Fixed-slot hash table for device k-mer lookup — the hot-path index.
 
-Motivation (measured on TPU v5e): XLA gathers pay a large per-ROW cost that
-shrinks as the number of distinct rows falls (at constant total bytes,
-gathering 1KB rows from a 2^17-row table is ~2x faster than 128B rows from a
-2^20-row table, and ~5x faster than a 16-slot layout), while the VPU eats
-the extra in-row compares for free until ~2KB rows.  A binary search
-(log2(N) scalar gathers) is ~30x slower.  This table answers a query with
-ONE wide row gather:
+This table answers a query with ONE wide row gather and in-row compares,
+instead of a binary search's log2(N) dependent scalar gathers:
 
-  * single level: [n1, C] uint64 slots, bucket = top m1 bits of an odd-
-    multiplier Fibonacci mix of the canonical value (C=128 slots/bucket at
-    load ~56 — ~20B/key, measured optimum on v5e)
+  * single level: [n1, C] 64-bit slots, bucket = top m1 bits of an odd-
+    multiplier Fibonacci mix of the canonical value (C=128 slots/bucket
+    at a mean of 44-88 keys per bucket: 12-23 B/key).  The row width and
+    the slot layout below were tuned on earlier hardware; ROADMAP S2
+    measures them on the H100
   * quotient storage: the mix (odd-multiplier mod 2^64) is a BIJECTION, so a
     slot only needs the mixed value's low 64-m1 bits — the bucket index
     supplies the rest.  This is the reference's own quotient/remainder trick
@@ -21,8 +18,8 @@ ONE wide row gather:
     a single-gather lookup — no separate label array.
   * stash: build-time bucket overflow (~1e-6 of keys at load 4.5) goes to a
     tiny replicated stash (<= 64 entries) checked with a broadcast compare —
-    VPU work, no gather; if the stash would overflow, the table is rebuilt
-    one bit larger
+    elementwise work, no gather; if the stash would overflow, the table is
+    rebuilt one bit larger
 
 Empty slots are all-ones.  No false hits: lb < m1 makes EMPTY >> lb wider
 than any 64-m1-bit query quotient, the all-ones label field is reserved
@@ -49,18 +46,9 @@ STASH_CAP = 64
 
 # Slot storage is uint32 in CONTIGUOUS-HALVES layout: row i is
 # [lo_0..lo_{C-1}, hi_0..hi_{C-1}], the two u32 halves of the C logical
-# u64 slots.  Same bytes, same single row gather — but measured on the
-# v5e (benchmarks/u32_probe_ab.py, carry-perturbed chains, 2^21 queries):
-#
-#   u64 slots:  45.0 ms/step at EVERY table size 67 MB-4.3 GB (the probe
-#               is bound by XLA's emulated-u64 VPU work, not the gather),
-#               and a u64 jit argument is materialized TWICE on device
-#               (X64SplitHigh/Low copy the whole table into hi/lo u32
-#               temp planes: +4.3 GB temps for a 4.3 GB table — the 800M
-#               -key dense table OOMed a 16 GB chip this way).
-#   u32 halves: 9.5 ms at 67 MB / 28.8 ms at 0.5 GB / 29.1 ms at 4.3 GB
-#               (1.55-4.8x faster; native u32 xor/compare/max) and NO
-#               split temps — the table occupies exactly its own bytes.
+# u64 slots.  Same bytes, same single row gather, with the xor/compare/max
+# done in native u32 ops.  The layout was chosen on hardware that emulates
+# u64; whether it still pays on the H100 is not measured (ROADMAP S2).
 #
 # The hit test splits exactly: slot == (qlow << lb) | lab  <=>
 # (x_hi == 0) & (x_lo < 2^lb) where x_* = slot_* ^ target_*, because
@@ -155,13 +143,9 @@ def plan_table(
         c = 128 if n >= 500_000 else 16
     if load is None:
         # mean keys/bucket lands in (load/2, load]; 0.69*c keeps the
-        # binomial overflow tail within the stash at any n while ROUNDING
-        # m1 DOWN one step vs the old 0.44*c in most cases — half the
-        # table bytes and slightly FASTER probes (the per-row gather cost
-        # grows with row count; m1=19 vs 20 at 46M keys measured +3%,
-        # docs/ROOFLINE.md §3.6).  At 244M keys (RefSeq scale) this is the
-        # difference between an 8.6 GB table that must cycle and a 4.3 GB
-        # one resident on a v5e.
+        # binomial overflow tail within the stash at any n while rounding
+        # m1 down one step vs 0.44*c in most cases: half the table bytes
+        # (a 4.3 GB table instead of 8.6 GB at 244M keys)
         load = c * 0.69
     maxlab = int(labels1.max()) if len(labels1) else 1
     # label bits: the all-ones field is reserved so a valid slot never equals
@@ -230,9 +214,8 @@ def build(
     """Build from unique uint64 canonical keys and int32 labels(+1).
 
     k enables label packing (single-gather probe); None disables it.
-    c/load default by DB size: wide 128-slot buckets (~20B/key, the measured
-    v5e optimum) for real DBs, narrow 16-slot buckets for tiny ones (cheaper
-    on CPU and for toy tables).
+    c/load default by DB size: wide 128-slot buckets for real DBs, narrow
+    16-slot buckets for tiny ones (cheaper on CPU and for toy tables).
     """
     keys = np.asarray(keys, dtype=np.uint64)
     labels1 = np.asarray(labels1, dtype=np.int32)
@@ -340,8 +323,7 @@ def _probe_rows(slots, qlow, b, lb):
     EMPTY's all-ones quotient field can never cancel — see module
     docstring).  With the target split into u32 halves that is
     (x_hi == 0) & (x_lo < 2^lb), and the label is x_lo — all native
-    u32 VPU ops on ONE [Q, 2C] row gather (measured 1.55-4.8x faster
-    than the u64-slot probe, benchmarks/u32_probe_ab.py)."""
+    u32 ops on ONE [Q, 2C] row gather."""
     import jax.numpy as jnp
 
     rows = slots[b]  # [Q, 2C]: lo half then hi half
@@ -357,7 +339,7 @@ def _probe_rows(slots, qlow, b, lb):
 
 
 def _stash_lookup(stash_keys, stash_labels, q):
-    """Broadcast compare against the tiny stash (VPU only, no gather)."""
+    """Broadcast compare against the tiny stash (elementwise, no gather)."""
     import jax.numpy as jnp
 
     eq = q[:, None] == stash_keys[None, :]  # [Q, STASH_CAP]
@@ -365,12 +347,9 @@ def _stash_lookup(stash_keys, stash_labels, q):
 
 
 # queries per probe chunk: bounds the [chunk, C] gather/compare temporaries
-# so arbitrarily large batch plans fit HBM.  Measured on v5e: the lax.map
-# itself costs ~55 ms per batch at 8M queries REGARDLESS of chunk count
-# (2/4 chunks alike), while a single unchunked 2^23-query probe both fits
-# comfortably and runs 1.6x faster — so the threshold is set at 2^23
-# (= the production window budget, i.e. default plans never enter lax.map)
-# and only larger experimental plans pay for chunking.
+# so arbitrarily large batch plans fit device memory.  Set at 2^23 (= the
+# default window budget), so default plans never enter lax.map and only
+# larger plans pay for chunking.
 _PROBE_CHUNK = 1 << 23
 
 
@@ -439,15 +418,12 @@ def probe_chunk(
 # --------------------------------------------------------------- dense table
 #
 # Two-choice ("cuckoo-style") dense layout for DBs between 1x and 2x the
-# device budget (VERDICT r4 item 2).  The standard table targets load 0.69
+# device budget.  The standard table targets load 0.69
 # so the binomial overflow tail fits the 64-entry stash with ONE bucket
 # choice; pushing occupancy to ~0.9 halves the row count (one m1 bit) but
 # overflows ~0.5% of keys — far past any stash.  Those spill into a SECOND
 # tiny plane keyed by an independent bijective mix (_MIX2), probed with a
-# second row gather.  Plane 2 is ~1/64 the bytes of plane 1, so it sits in
-# the fast small-footprint gather regime (docs/ROOFLINE.md §3.64: 400M
-# rows/s under ~a few hundred MB vs 94M above) — the measured cost of the
-# second gather is a fraction of the first, not 2x.
+# second row gather.  Plane 2 is ~1/64 the bytes of plane 1.
 #
 # Within each plane the quotient trick holds unchanged (per-plane mix is a
 # bijection, the plane's bucket index supplies the top m-bits), so both

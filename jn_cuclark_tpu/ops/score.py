@@ -18,11 +18,11 @@ def counts_from_hits(labels1: jnp.ndarray, read_id: jnp.ndarray, n_reads: int, n
     """Dense per-read count matrix [n_reads, n_targets+1] from per-query
     (label+1) values (0 = miss, accumulated in ignored column 0).
 
-    Strategy by size (measured on v5e): when the bin count is small, sorting
-    the combined (read, label) ids and diffing bin boundaries beats the
-    scatter-based segment_sum (~20%); TPU sorts are fast, scatters pay
-    ~19ns/element.  (A chunked broadcast compare-reduce was also tried and
-    lost — XLA materializes the [Q, T] compare.)
+    Strategy by size: when the bin count is small, sort the combined
+    (read, label) ids and diff bin boundaries; otherwise a scatter-based
+    segment_sum.  Integer counts are exact in any order, so both give the
+    same matrix.  The crossover was tuned on earlier hardware; its cost on
+    the H100 is not measured.
     """
     n_bins = n_reads * (n_targets + 1)
     ids = read_id * (n_targets + 1) + labels1
@@ -44,9 +44,8 @@ def top2_from_labels(lab: jnp.ndarray):
     dense count matrix.
 
     Sort each read's labels along the window axis, then compute run lengths
-    with cummax/cummin arithmetic — pure VPU work, no gather/scatter.  On
-    v5e this is ~15x faster than segment_sum+read_results at 500 targets
-    (benchmarks/experiments.py exp_counts) and bit-identical to it,
+    with cummax/cummin arithmetic — elementwise work, no gather/scatter.
+    It is bit-identical to segment_sum+read_results,
     including the reference's tie-breaks (count desc, target index asc;
     resultKernel CuClarkDB.cu:1361-1411).  Used on the single-device
     non-extended path; extended mode and mesh psum still need dense counts.

@@ -1,13 +1,20 @@
-"""ctypes bindings for the native C++ runtime (native/libclark_native.so).
+"""ctypes bindings for the native C++ runtime (native/clark_native.cpp).
 
-Optional: every entry point has a pure-numpy fallback in the package; callers
-check `available()` first.  Build with `make -C native`.
+The library is compiled from the committed source at first use into
+native/build/ (gitignored), keyed on a hash of the source, the compiler
+line and the host CPU, so a stale build is never loaded.  Every entry
+point has a pure-numpy fallback in the package, used only where no C++
+compiler exists; callers check `available()` first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
+import subprocess
 
 import numpy as np
 
@@ -17,8 +24,89 @@ _U64P = ctypes.POINTER(ctypes.c_uint64)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U16P = ctypes.POINTER(ctypes.c_uint16)
 
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+SOURCE = os.path.join(NATIVE_DIR, "clark_native.cpp")
+BUILD_DIR = os.path.join(NATIVE_DIR, "build")
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-fopenmp", "-Wall", "-shared")
+
 _lib = None
 _tried = False
+
+
+def _host_cpu() -> bytes:
+    """The CPU model and instruction-set flags `-march=native` compiles
+    for, so a build directory copied to another host is rebuilt there."""
+    with open("/proc/cpuinfo", "rb") as f:
+        info = f.read().split(b"\n\n")[0]
+    return b"\n".join(ln for ln in info.splitlines()
+                      if ln.startswith((b"model name", b"flags")))
+
+
+def find_cxx() -> str | None:
+    """The C++ compiler to build with: the first of $CXX and the g++
+    executables on PATH whose toolchain ships OpenMP (`-print-file-name`
+    finds its libgomp.spec; some installed GCCs lack it and cannot link
+    -fopenmp), else the first of them at all, whose build then raises
+    with its error.  None when there is none."""
+    cands = [os.environ["CXX"]] if os.environ.get("CXX") else []
+    for d in os.environ.get("PATH", "").split(os.pathsep):
+        exe = os.path.join(d, "g++")
+        if os.path.isfile(exe) and os.access(exe, os.X_OK):
+            cands.append(exe)
+    for exe in cands:
+        if shutil.which(exe) is None:
+            continue
+        spec = subprocess.run([exe, "-print-file-name=libgomp.spec"],
+                              capture_output=True, text=True).stdout.strip()
+        if os.path.isabs(spec) and os.path.exists(spec):
+            return exe
+    return cands[0] if cands else None
+
+
+def library_path(cxx: str = "g++") -> str:
+    """Where the build of the current source with `cxx` for this CPU
+    lives."""
+    h = hashlib.sha256()
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join((cxx,) + CXXFLAGS).encode())
+    h.update(_host_cpu())
+    return os.path.join(BUILD_DIR, f"libclark_native-{h.hexdigest()[:16]}.so")
+
+
+def build(cxx: str | None = None) -> str | None:
+    """Compile the library if this source has no build yet; returns its
+    path, or None when no C++ compiler is installed.  A compiler that
+    cannot build it raises with its error: set CXX to one that can.
+
+    Concurrent callers (test workers, cluster processes) serialize on a
+    lock file; the compiler writes a temporary name that is renamed into
+    place, so no process ever loads a half-written library."""
+    cxx = cxx or find_cxx()
+    if cxx is None or shutil.which(cxx) is None:
+        return None
+    path = library_path(cxx)
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            r = subprocess.run([cxx, *CXXFLAGS, "-o", tmp, SOURCE],
+                               capture_output=True, text=True)
+            if r.returncode:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(
+                    f"building {SOURCE} with {cxx} failed (set CXX to a "
+                    f"C++ compiler with OpenMP):\n{r.stderr[-3000:]}"
+                )
+            os.replace(tmp, path)
+    return path
 
 
 def _load():
@@ -27,18 +115,14 @@ def _load():
         return _lib
     _tried = True
     if os.environ.get("CLARK_TPU_NO_NATIVE"):
-        _lib = None  # force the pure-numpy fallbacks (testing / odd platforms)
+        _lib = None  # force the pure-numpy fallbacks (testing)
         return None
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-        "libclark_native.so",
-    )
-    try:
-        lib = ctypes.CDLL(path)
-    except OSError:
-        _lib = None
+    path = build()
+    if path is None:
         return None
+    lib = ctypes.CDLL(path)
+    lib.native_threads.restype = ctypes.c_int
+    lib.native_threads.argtypes = []
     lib.scan_fasta.restype = ctypes.c_int64
     lib.scan_fasta.argtypes = [_U8P, ctypes.c_int64, ctypes.c_int64] + [_I64P] * 5
     lib.scan_fastq.restype = ctypes.c_int64
@@ -59,30 +143,29 @@ def _load():
         ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p, _I64P,
         ctypes.c_char_p, ctypes.c_int64,
     ]
-    try:
-        lib.format_rows_extended_sorted.restype = ctypes.c_int64
-        lib.format_rows_extended_sorted.argtypes = [
-            _U8P, _I64P, _I64P, ctypes.POINTER(ctypes.c_uint16),
-            ctypes.c_int64, _I32P, _I32P, _I32P, _I32P, _I64P,
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
-            _I64P, ctypes.c_char_p, ctypes.c_int64,
-        ]
-    except AttributeError:  # stale .so without the symbol
-        pass
-    try:
-        lib.abundance_scan.restype = ctypes.c_int64
-        lib.abundance_scan.argtypes = [
-            _U8P, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_double, ctypes.c_double, _U64P,
-        ]
-    except AttributeError:  # stale .so without the symbol
-        pass
+    lib.format_rows_extended_sorted.restype = ctypes.c_int64
+    lib.format_rows_extended_sorted.argtypes = [
+        _U8P, _I64P, _I64P, ctypes.POINTER(ctypes.c_uint16),
+        ctypes.c_int64, _I32P, _I32P, _I32P, _I32P, _I64P,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
+        _I64P, ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.abundance_scan.restype = ctypes.c_int64
+    lib.abundance_scan.argtypes = [
+        _U8P, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_double, _U64P,
+    ]
     _lib = lib
     return lib
 
 
 def available() -> bool:
     return _load() is not None
+
+
+def threads() -> int:
+    """Worker threads of the native parallel loops (OpenMP's count)."""
+    return int(_load().native_threads())
 
 
 def _u8(data) -> tuple[np.ndarray, _U8P]:
@@ -196,7 +279,7 @@ def abundance_scan(
     are returned in first-appearance order, matching abundance.estimate's
     dict order."""
     lib = _load()
-    if lib is None or not hasattr(lib, "abundance_scan"):
+    if lib is None:
         return None
     arr, _ = _u8(body)
     arr = arr[offset:]
@@ -237,11 +320,6 @@ class NamesBuffer:
             buf += t.encode() + b"\x00"
         self.buf = bytes(buf)
         self.off = np.array(offs, dtype=np.int64)
-
-
-def has_sorted_formatter() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "format_rows_extended_sorted")
 
 
 def format_rows(
@@ -371,32 +449,30 @@ def _ensure_build_sigs(lib):
     ]
     lib.saturating_group_sum.restype = None
     lib.saturating_group_sum.argtypes = [_I64P, ctypes.c_int64, _I64P, _I64P]
-    if hasattr(lib, "serialize_db"):
-        lib.serialize_db.restype = ctypes.c_int32
-        lib.serialize_db.argtypes = [
-            _U64P, _U16P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int32,
-            ctypes.c_int32, _U8P, _U8P, _U16P,
-        ]
-    if hasattr(lib, "serialize_db_parts"):
-        lib.serialize_db_parts.restype = ctypes.c_int32
-        lib.serialize_db_parts.argtypes = [
-            _U64P, _U16P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32, _U8P, _U8P, _U16P,
-        ]
-        lib.occ_partition_count.restype = None
-        lib.occ_partition_count.argtypes = [
-            _U64P, ctypes.c_int64, ctypes.c_int32, _I64P,
-        ]
-        lib.occ_partition_scatter.restype = None
-        lib.occ_partition_scatter.argtypes = [
-            _U64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
-            ctypes.c_int32, _I64P, ctypes.c_void_p,
-        ]
-        lib.aggregate_kv_range.restype = ctypes.c_int64
-        lib.aggregate_kv_range.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, _I32P, ctypes.c_int32,
-            _U64P, _I32P, _I32P, _I64P, _I64P,
-        ]
+    lib.serialize_db.restype = ctypes.c_int32
+    lib.serialize_db.argtypes = [
+        _U64P, _U16P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int32,
+        ctypes.c_int32, _U8P, _U8P, _U16P,
+    ]
+    lib.serialize_db_parts.restype = ctypes.c_int32
+    lib.serialize_db_parts.argtypes = [
+        _U64P, _U16P, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, _U8P, _U8P, _U16P,
+    ]
+    lib.occ_partition_count.restype = None
+    lib.occ_partition_count.argtypes = [
+        _U64P, ctypes.c_int64, ctypes.c_int32, _I64P,
+    ]
+    lib.occ_partition_scatter.restype = None
+    lib.occ_partition_scatter.argtypes = [
+        _U64P, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+        ctypes.c_int32, _I64P, ctypes.c_void_p,
+    ]
+    lib.aggregate_kv_range.restype = ctypes.c_int64
+    lib.aggregate_kv_range.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _I32P, ctypes.c_int32,
+        _U64P, _I32P, _I32P, _I64P, _I64P,
+    ]
     lib._build_sigs = True
 
 
@@ -437,11 +513,6 @@ def saturating_group_sum(bounds: np.ndarray, v: np.ndarray) -> np.ndarray:
     return out[:ngroups]
 
 
-def has_serialize_db() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "serialize_db")
-
-
 class BucketOverflowError(ValueError):
     """A hash bucket exceeded the format's 255-entry cap
     (hashTable_hh.hh:499-507)."""
@@ -467,11 +538,6 @@ def serialize_db(canon, labels, htsize: int, rem_bits: int, key_dtype):
     if rc != 0:
         raise BucketOverflowError("bucket list size exceeds 255")
     return sizes, keys[:n], labs[:n]
-
-
-def has_partitioned_build() -> bool:
-    lib = _load()
-    return lib is not None and hasattr(lib, "serialize_db_parts")
 
 
 def serialize_db_parts(canon, labels, htsize: int, rem_bits: int, key_dtype,

@@ -1,13 +1,14 @@
 // Native runtime for jn_cuclark_tpu: FASTA/FASTQ scanning, 2-bit batch
 // packing, and C-printf CSV result formatting.
 //
-// TPU-native counterpart of the reference's host-side engine hot loops
+// Counterpart of the reference's host-side engine hot loops
 // (CuCLARK_hh.hh:1340-1534 read scan, :1610-1726 container packing,
 // :1946-2122 result printing), redesigned for the packed [R, stride] row
 // layout consumed by the JAX device pipeline instead of the CUDA container
 // stream.  Exposed with a C ABI for ctypes; all buffers are numpy-owned.
 //
-// Build: make -C native   (g++ -O3 -shared -fPIC -fopenmp)
+// Built at first use by jn_cuclark_tpu/utils/native.py
+// (g++ -O3 -march=native -fPIC -fopenmp -shared).
 
 #include <cctype>
 #include <cstdint>
@@ -21,6 +22,15 @@
 #endif
 
 extern "C" {
+
+// Worker threads the parallel loops below use (1 in a serial build).
+int native_threads() {
+#ifdef _OPENMP
+  return omp_get_max_threads();
+#else
+  return 1;
+#endif
+}
 
 // ---------------------------------------------------------------- scanning
 //

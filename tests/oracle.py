@@ -1,7 +1,7 @@
 """Brute-force pure-Python reference implementation used as a test oracle.
 
 Implements CLARK semantics directly from the reference's formulas (scalar,
-dict-based, slow) so the vectorized/TPU implementation can be checked against
+dict-based, slow) so the vectorized/device implementation can be checked against
 an independent derivation.
 """
 

@@ -177,7 +177,7 @@ def test_centromere_labels(tmp_path):
 
 
 def test_device_aggregation_matches_host(toy):
-    """TPU/device sort+segment aggregation == host aggregation."""
+    """Device sort+segment aggregation == host aggregation."""
     folder, tpath, genomes = toy
     k = 9
     prof = params.tiny(htsize=1021, k=k)
@@ -278,40 +278,32 @@ def test_spectrum_input_build(tmp_path):
     assert got == want
 
 
-def test_device_build_falls_back_on_failure(tmp_path, monkeypatch, capsys):
-    """db build --device is best-effort: a backend failure (e.g. the remote
-    AOT compile helper OOM-killed on ~50M-element sorts) falls back to the
-    native host aggregation instead of failing the build."""
-    import numpy as np
-
-    from jn_cuclark_tpu.utils import native as _nat
-
-    if not _nat.available():
-        pytest.skip("native library unavailable (fallback-of-fallback test)")
-
-    from jn_cuclark_tpu import params
-    from jn_cuclark_tpu.db import builder, device_build
-    from jn_cuclark_tpu.io import dbformat
-    from jn_cuclark_tpu.io.targets import parse_targets
-
-    rng = np.random.default_rng(33)
-    write_fasta(tmp_path / "g.fa", [("g", rand_seq(rng, 500))])
+def _one_target_db(tmp_path, seed, n=500):
+    rng = np.random.default_rng(seed)
+    write_fasta(tmp_path / "g.fa", [("g", rand_seq(rng, n))])
     (tmp_path / "targets.txt").write_text(f"{tmp_path}/g.fa 600\n")
-    targets = parse_targets(str(tmp_path / "targets.txt"))
+    return parse_targets(str(tmp_path / "targets.txt"))
+
+
+@pytest.mark.parametrize("part_min", [str(1 << 40), "0"])
+def test_device_build_failure_raises(tmp_path, monkeypatch, part_min):
+    """db build --device never hides a device error behind the host
+    build: a failing device aggregate fails the build, in the one-shot
+    and in the partitioned path."""
+    from jn_cuclark_tpu.db import device_build
+
+    targets = _one_target_db(tmp_path, 33)
     prof = params.tiny(htsize=1021, k=9)
 
     def boom(*a, **k):
-        raise RuntimeError("remote compile helper SIGKILL")
+        raise RuntimeError("device aggregate failed")
 
     monkeypatch.setattr(device_build, "aggregate_device", boom)
-    db = builder.build_database(targets, str(tmp_path), prof, 9, device=True)
-    assert "falling back" in capsys.readouterr().err
+    monkeypatch.setenv("CLARK_TPU_BUILD_PART_MIN", part_min)
+    with pytest.raises(RuntimeError, match="device aggregate failed"):
+        builder.build_database(targets, str(tmp_path), prof, 9, device=True)
     stem = str(tmp_path / prof.db_stem(9, 1, 0, prof.default_gap))
-    assert dbformat.db_exists(stem)
-    d2 = tmp_path / "ref"
-    d2.mkdir()
-    ref = builder.build_database(targets, str(d2), prof, 9)
-    assert np.array_equal(db.canonical, ref.canonical)
+    assert not dbformat.db_exists(stem)
 
 
 def test_too_many_targets_rejected(tmp_path):
@@ -332,7 +324,7 @@ def test_partitioned_build_byte_identical(tmp_path, monkeypatch):
     .sz/.ky/.lb to the one-shot native path."""
     from jn_cuclark_tpu.utils import native
 
-    if not (native.available() and native.has_partitioned_build()):
+    if not native.available():
         pytest.skip("native partitioned build unavailable")
     rng = np.random.default_rng(31)
     d1, d2 = tmp_path / "oneshot", tmp_path / "parts"
@@ -368,7 +360,7 @@ def test_serialize_db_parts_byte_identical():
     from jn_cuclark_tpu.io import dbformat
     from jn_cuclark_tpu.utils import native
 
-    if not (native.available() and native.has_partitioned_build()):
+    if not native.available():
         pytest.skip("native partitioned build unavailable")
     rng = np.random.default_rng(33)
     htsize = 65521
@@ -392,7 +384,7 @@ def test_partitioned_device_build_matches_host(tmp_path, monkeypatch):
     must produce the same DB as the host partitioned path."""
     from jn_cuclark_tpu.utils import native
 
-    if not (native.available() and native.has_partitioned_build()):
+    if not native.available():
         pytest.skip("native partitioned build unavailable")
     rng = np.random.default_rng(41)
     d1, d2 = tmp_path / "host", tmp_path / "dev"
@@ -415,68 +407,31 @@ def test_partitioned_device_build_matches_host(tmp_path, monkeypatch):
     assert host.n_mother == dev.n_mother
 
 
-def test_device_build_link_gate(tmp_path, monkeypatch, capsys):
-    """VERDICT r4 weak-3: --device must never silently ship the slower
-    path.  A measured slow link (relay-class H2D/D2H) flips the build to
-    the host aggregate with the measured justification printed;
-    CLARK_TPU_DEVICE_BUILD=force bypasses the gate."""
-    import numpy as np
-
-    from jn_cuclark_tpu.utils import native as _nat
-
-    if not _nat.available():
-        pytest.skip("native library unavailable")
-
-    from jn_cuclark_tpu import params
-    from jn_cuclark_tpu.db import builder, device_build
-    from jn_cuclark_tpu.io.targets import parse_targets
+def test_device_build_cli_matches_host(tmp_path):
+    """`clark-tpu db build --device` writes the host build's files."""
+    from jn_cuclark_tpu import cli
+    from jn_cuclark_tpu.database import DBConfig
 
     rng = np.random.default_rng(44)
-    write_fasta(tmp_path / "g.fa", [("g", rand_seq(rng, 600))])
-    (tmp_path / "targets.txt").write_text(f"{tmp_path}/g.fa 601\n")
-    targets = parse_targets(str(tmp_path / "targets.txt"))
+    db = tmp_path / "db"
+    sub = db / "sub"
+    sub.mkdir(parents=True)
+    with open(db / "targets.txt", "w") as f:
+        for i in range(3):
+            write_fasta(db / f"g{i}.fa", [(f"g{i}", rand_seq(rng, 600))])
+            f.write(f"{db}/g{i}.fa {601 + i}\n")
     prof = params.tiny(htsize=1021, k=9)
-
-    # relay-class link: 100 MB/s down, 10 MB/s up -> device loses
-    monkeypatch.setattr(
-        device_build, "link_calibration", lambda *a, **k: (1e8, 1e7)
-    )
-    calls = {"n": 0}
-    real = device_build.aggregate_device
-
-    def spy(*a, **k):
-        calls["n"] += 1
-        return real(*a, **k)
-
-    monkeypatch.setattr(device_build, "aggregate_device", spy)
-    d1 = tmp_path / "gated"
-    d1.mkdir()
-    builder.build_database(targets, str(d1), prof, 9, device=True)
-    assert calls["n"] == 0  # gate flipped to host
-    assert "would LOSE" in capsys.readouterr().err
-
-    # force: device path runs despite the slow measured link
-    monkeypatch.setenv("CLARK_TPU_DEVICE_BUILD", "force")
-    d2 = tmp_path / "forced"
-    d2.mkdir()
-    builder.build_database(targets, str(d2), prof, 9, device=True)
-    assert calls["n"] >= 1
-
-    # byte-equal outputs either way
-    stem = prof.db_stem(9, 1, 0, prof.default_gap)
-    for ext in (".sz", ".ky", ".lb"):
-        assert (d1 / (stem + ext)).read_bytes() == (
-            d2 / (stem + ext)
-        ).read_bytes()
-
-
-def test_link_estimate_math():
-    from jn_cuclark_tpu.db import device_build
-
-    # relay-class: 0.5 GB/s down, 10 MB/s up, 100M occurrences -> device
-    # pays ~240s of D2H alone vs ~110s host -> lose
-    win, dev, host = device_build.estimate_speedup(100_000_000, 5e8, 1e7)
-    assert win < 1.0
-    # attached-class: 10 GB/s both ways -> transfers ~0.4s, device wins
-    win, dev, host = device_build.estimate_speedup(100_000_000, 1e10, 1e10)
-    assert win > 1.0
+    DBConfig(
+        db_dir=str(db), targets=str(db / "targets.txt"), subdb=str(sub),
+        rank=0, profile_name=prof.name, k=9, gap=prof.default_gap,
+        min_count_target=0, htsize=prof.htsize, light=prof.light,
+    ).save()
+    stem = prof.db_stem(9, 3, 0, prof.default_gap)
+    files = {}
+    for flags in ([], ["--device"]):
+        assert cli.main(["db", "build", str(db), "--htsize", "1021",
+                         "-k", "9", *flags]) == 0
+        files[bool(flags)] = [
+            (sub / (stem + ext)).read_bytes() for ext in (".sz", ".ky", ".lb")
+        ]
+    assert files[True] == files[False]

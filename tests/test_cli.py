@@ -160,6 +160,7 @@ def test_verify(dbdir, capsys):
     rc = run_cli("verify", "--db", str(db))
     out = capsys.readouterr().out
     assert "STATUS:" in out
+    assert "platform cpu, cpu x 8" in out  # platform and device_kind shown
     assert rc == 0, out
 
 

@@ -1,4 +1,4 @@
-"""Two-process jax.distributed cluster run on local CPU: exercises the DCN
+"""Two-process jax.distributed cluster run on local CPU: exercises the cross-host
 allgather result merge and coordinator report (the kent-mpi multi-node path,
 without SSH/MPI)."""
 
@@ -99,7 +99,6 @@ file = cluster_run.log
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CLARK_TPU_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
         + env.get("PYTHONPATH", "").split(os.pathsep)
@@ -234,7 +233,6 @@ file = cluster_run.log
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CLARK_TPU_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
         + env.get("PYTHONPATH", "").split(os.pathsep)
@@ -281,7 +279,7 @@ file = cluster_run.log
 
 def test_two_process_2d_dpdb(tmp_path):
     """2-D dp x db over processes: table rows sharded across the 2 processes
-    (db axis, DCN analogue) AND read rows across each process's 2 local CPU
+    (db axis, cross-host analogue) AND read rows across each process's 2 local CPU
     devices (dp axis) — output byte-equal to single-process."""
     rng = np.random.default_rng(55)
     dbdir = tmp_path / "db"
@@ -352,7 +350,6 @@ file = cluster_run.log
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CLARK_TPU_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
         + env.get("PYTHONPATH", "").split(os.pathsep)
@@ -470,7 +467,6 @@ file = cluster_run.log
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CLARK_TPU_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
         + env.get("PYTHONPATH", "").split(os.pathsep)
@@ -514,7 +510,7 @@ def test_launch_duplicate_workers_rejected(tmp_path):
 
 
 def test_worker_death_contained(tmp_path):
-    """VERDICT r4 item 6: kill one of 2 processes mid-run (after classify,
+    """Kill one of 2 processes mid-run (after classify,
     before reporting) — the master must NOT hang on a collective, must
     report the dead worker's node FAILED, and must finish its own sample
     (kent_mpi.cpp:518-521, 712-727 containment parity)."""
@@ -587,7 +583,6 @@ file = cluster_run.log
 
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["CLARK_TPU_PLATFORM"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
         + env.get("PYTHONPATH", "").split(os.pathsep)
@@ -632,3 +627,49 @@ file = cluster_run.log
     # dead worker's node is reported FAILED
     nb = report.split("nodeB:")[1]
     assert "FAILED" in nb.split("\n\n")[0]
+
+
+def test_card_per_process():
+    """Processes that share a machine get one card each; a process alone
+    on its machine keeps all of its cards."""
+    from jn_cuclark_tpu.cluster import card_per_process
+
+    here = {"gpu-host"}
+    assert card_per_process(["gpu-host", "nodeB", "nodeC"], here) == [
+        None, None, None
+    ]
+    assert card_per_process(
+        ["m", "localhost", "gpu-host", "nodeB", "127.0.0.1"], here
+    ) == ["0", "1", "2", None, "3"]
+
+
+def test_launch_gives_colocated_processes_their_own_card(tmp_path):
+    """`cluster --launch` with the master and a worker on this machine: the
+    spawned processes see CUDA_VISIBLE_DEVICES 0 and 1 (the launch command
+    is stubbed to print it)."""
+    from jn_cuclark_tpu import cluster
+    from jn_cuclark_tpu.utils.logging import ClusterLogger
+
+    stub = tmp_path / "fakessh"
+    stub.write_text("#!/bin/sh\nshift\nexec sh -c \"$*\"\n")
+    stub.chmod(0o755)
+    show = tmp_path / "show"
+    show.write_text("#!/bin/sh\necho card=$CUDA_VISIBLE_DEVICES "
+                    "pid=$CLARK_TPU_PROCESS_ID\n")
+    show.chmod(0o755)
+    conf = tmp_path / "c.conf"
+    conf.write_text(
+        "[cluster]\nmaster = hostA\nworkers = localhost\n"
+        f"backend = jax_distributed\nssh_command = {stub}\n"
+        f"launch_command = {show}\n"
+        f"[paths]\ncuclark_dir = {tmp_path}\ndatabase = {tmp_path}\n"
+        f"results_dir = {tmp_path}\n[reads]\nhostA = {tmp_path}/r.fa\n"
+        f"localhost = {tmp_path}/r.fa\n"
+    )
+    cfg = cluster.ClusterConfig.load(str(conf))
+    log = ClusterLogger(level="INFO", logfile=str(tmp_path / "l.log"))
+    assert cluster.launch(cfg, log, str(conf)) == 0
+    log.close()
+    text = (tmp_path / "l.log").read_text()
+    assert "[hostA] card=0 pid=0" in text
+    assert "[localhost] card=1 pid=1" in text

@@ -87,7 +87,7 @@ def test_native_serialize_matches_numpy(tmp_path, htsize, k, monkeypatch):
     to the numpy mod/div + argsort + RLE path at every key width."""
     from jn_cuclark_tpu.utils import native
 
-    if not (native.available() and native.has_serialize_db()):
+    if not native.available():
         pytest.skip("native serialize_db not built")
     prof = params.tiny(htsize=htsize, k=k)
     rng = np.random.default_rng(3)
@@ -95,7 +95,7 @@ def test_native_serialize_matches_numpy(tmp_path, htsize, k, monkeypatch):
     labels = rng.integers(0, 500, size=len(canon)).astype(np.uint16)
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     dbformat.write_db(a, prof, k, canon, labels)
-    monkeypatch.setattr(native, "has_serialize_db", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
     dbformat.write_db(b, prof, k, canon, labels)
     for ext in (".sz", ".ky", ".lb"):
         assert open(a + ext, "rb").read() == open(b + ext, "rb").read()

@@ -1,4 +1,4 @@
-"""Dense two-choice ("cuckoo") table — VERDICT r4 item 2.
+"""Dense two-choice ("cuckoo") table.
 
 A DB between 1x and ~2x the device budget stays RESIDENT at load ~0.9
 (two row gathers per probe: the overflow spills into a tiny second plane
@@ -159,7 +159,7 @@ def test_auto_policy_falls_back_to_cycling(db, monkeypatch):
     import jn_cuclark_tpu.utils.memory as mem
 
     monkeypatch.setattr(
-        mem, "auto_db_cycles", lambda *a, **kw: (3, 1 << 19)
+        mem, "auto_db_cycles", lambda *a, **kw: (3, 1 << 10)
     )
     clf = Classifier.load(str(tmp_path), targets, prof, K, plan=plan)
     assert clf.db_cycles == 3

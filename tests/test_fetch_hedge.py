@@ -1,6 +1,5 @@
-"""Hedged result fetch (utils/fetch.py): a stalled device_get RPC must not
-block the caller once a re-issued fetch can succeed (VERDICT r4 item 4 —
-one >100 s fetch stall zeroed a whole bench rep)."""
+"""Hedged result fetch (utils/fetch.py): a stalled device_get must not
+block the caller once a re-issued fetch can succeed."""
 
 import threading
 import time

@@ -23,26 +23,26 @@ K = 9
 
 def test_auto_cycles_math(monkeypatch):
     monkeypatch.setenv("CLARK_TPU_DEVICE_MEM_BYTES", str(16 << 30))
-    trans = memory.probe_transient_bytes(1 << 23, 128)
+    trans = memory.probe_transient_bytes(1 << 23)
     budget = (16 << 30) - memory.RESERVED - trans
     # table smaller than budget -> one cycle
-    assert memory.auto_db_cycles(budget - 1, 1 << 23, 128) == (1, budget)
+    assert memory.auto_db_cycles(budget - 1, 1 << 23) == (1, budget)
     # 2.5x budget -> cycling engages; double-buffered uploads keep two
     # chunks resident, so each chunk fits half the budget -> 5 cycles
     cycles, b = memory.auto_db_cycles(
-        int(budget * 2.5), 1 << 23, 128
+        int(budget * 2.5), 1 << 23
     )
     assert cycles == 5 and b == budget
     # with prefetch disabled one chunk is resident -> 3 cycles
     monkeypatch.setenv("CLARK_TPU_PREFETCH_CHUNKS", "0")
     cycles, b = memory.auto_db_cycles(
-        int(budget * 2.5), 1 << 23, 128
+        int(budget * 2.5), 1 << 23
     )
     assert cycles == 3 and b == budget
     monkeypatch.delenv("CLARK_TPU_PREFETCH_CHUNKS")
     # sharding divides the per-device need
     cycles, _ = memory.auto_db_cycles(
-        int(budget * 2.5), 1 << 23, 128, n_shards=4
+        int(budget * 2.5), 1 << 23, n_shards=4
     )
     assert cycles == 1
 
@@ -51,7 +51,7 @@ def test_auto_cycles_floor(monkeypatch):
     # device smaller than RESERVED + transients + floor -> actionable error
     monkeypatch.setenv("CLARK_TPU_DEVICE_MEM_BYTES", str(1 << 30))
     with pytest.raises(RuntimeError, match="--shard-db|CLARK_TPU_DEVICE_MEM"):
-        memory.auto_db_cycles(1 << 30, 1 << 23, 128)
+        memory.auto_db_cycles(1 << 30, 1 << 23)
 
 
 def test_device_memory_limit_env(monkeypatch):
@@ -63,6 +63,33 @@ def test_device_memory_limit_cpu(monkeypatch):
     monkeypatch.delenv("CLARK_TPU_DEVICE_MEM_BYTES", raising=False)
     # CPU devices have no accelerator limit -> None (no auto-cycling)
     assert memory.device_memory_limit() is None
+
+
+class _FakeDevice:
+    platform = "gpu"
+    device_kind = "Fake Accelerator"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats", [None, {}, {"bytes_limit": 0}])
+def test_device_memory_limit_unsized_accelerator_raises(monkeypatch, stats):
+    """An accelerator that reports no memory limit is an error: guessing
+    (or returning None, which disables auto-cycling) would turn an
+    over-budget DB into a raw out-of-memory crash."""
+    monkeypatch.delenv("CLARK_TPU_DEVICE_MEM_BYTES", raising=False)
+    with pytest.raises(RuntimeError, match="reports no memory limit"):
+        memory.device_memory_limit(_FakeDevice(stats))
+
+
+def test_device_memory_limit_from_stats(monkeypatch):
+    monkeypatch.delenv("CLARK_TPU_DEVICE_MEM_BYTES", raising=False)
+    dev = _FakeDevice({"bytes_limit": 60 << 30, "bytes_in_use": 1})
+    assert memory.device_memory_limit(dev) == 60 << 30
 
 
 @pytest.fixture(scope="module")
@@ -149,3 +176,26 @@ def test_chunk_prefetch_byte_equal(db, monkeypatch):
     assert outs[("host", "1")] == outs[("host", "0")]
     assert outs[("mesh", "1")] == outs[("mesh", "0")]
     assert outs[("host", "1")] == outs[("mesh", "1")]
+
+
+@pytest.mark.parametrize("dense", ["0", "force"])
+def test_dropped_classifier_frees_at_once(db, monkeypatch, dense):
+    """A Classifier is in no reference cycle, so dropping it releases its
+    device table at once rather than at some later garbage collection."""
+    import gc
+    import weakref
+
+    tmp_path, prof, targets, fa = db
+    monkeypatch.setenv("CLARK_TPU_DENSE", dense)
+    clf = Classifier.load(
+        str(tmp_path), targets, prof, K,
+        plan=BatchPlan(max_reads=64, window_budget=1 << 13),
+    )
+    clf.classify_bytes(fa)
+    ref = weakref.ref(clf)
+    gc.disable()
+    try:
+        del clf
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -205,7 +205,7 @@ def test_db_sharded_cycles_labels_strategy(db):
 def test_sorted_runs_extended_on_meshes(db):
     """Extended mode on meshes ships the sorted u16 label grid (O(windows)
     fetch) instead of a dense [R, T+1] count matrix — same device step as
-    non-extended at any target count (VERDICT r3 item 2).  Checks the
+    non-extended at any target count.  Checks the
     engine's gate engages and the mesh batch_fns' "sorted" outputs agree
     with their dense-counts outputs."""
     import jax.numpy as jnp
@@ -213,8 +213,8 @@ def test_sorted_runs_extended_on_meshes(db):
     from jn_cuclark_tpu.parallel.mesh import make_mesh2d
     from jn_cuclark_tpu.utils import native as _native
 
-    if not _native.has_sorted_formatter():
-        pytest.skip("native sorted formatter unavailable")
+    if not _native.available():
+        pytest.skip("native runtime unavailable")
     tmp_path, prof, targets, fa = db
     plan = BatchPlan(window_budget=1 << 14)
     for mesh, mode in (
@@ -238,3 +238,48 @@ def test_sorted_runs_extended_on_meshes(db):
         assert np.asarray(runs).shape[1] > 1  # the window grid, not [R, T+1]
         for a, b in ((t_s, t_d), (ib_s, ib_d), (b_s, b_d), (sb_s, sb_d)):
             assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_dryrun_multichip_raises_when_devices_are_short():
+    """No silent platform switch: asking for more devices than exist is an
+    error."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from __graft_entry__ import dryrun_multichip
+
+    with pytest.raises(RuntimeError, match="needs 16 devices"):
+        dryrun_multichip(2 * len(jax.devices()))
+
+
+@pytest.mark.parametrize("mode", ["db", "dp", "dpdb"])
+def test_table_reaches_each_device_from_the_host(db, monkeypatch, mode):
+    """Loading a mesh never commits a host array to the default device
+    first: every device_put of the table, stash or cycle index takes the
+    host array, so device 0 holds no more than its own share."""
+    from jn_cuclark_tpu.parallel.mesh import make_mesh2d
+
+    tmp_path, prof, targets, fa = db
+    staged = []
+    put = jax.device_put
+
+    def spy(x, *a, **kw):
+        if isinstance(x, jax.Array):
+            staged.append(x.shape)
+        return put(x, *a, **kw)
+
+    monkeypatch.setattr(jax, "device_put", spy)
+    mesh = make_mesh2d(2, 2) if mode == "dpdb" else make_mesh(4)
+    clf = Classifier.load(
+        str(tmp_path), targets, prof, K, plan=BatchPlan(window_budget=1 << 14),
+        mesh=mesh, mesh_mode="db" if mode == "db" else "dp",
+    )
+    assert staged == []
+    monkeypatch.setattr(jax, "device_put", put)
+    single = Classifier.load(
+        str(tmp_path), targets, prof, K, plan=BatchPlan(window_budget=1 << 14)
+    )
+    assert oracle.rows(clf.classify_bytes(fa)[0]) == oracle.rows(
+        single.classify_bytes(fa)[0]
+    )

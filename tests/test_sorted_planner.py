@@ -1,7 +1,7 @@
 """Length-bucketed batch planning must be invisible in the output.
 
 The sorted planner regroups a planning window's reads by stride tier for
-dense same-stride batches (VERDICT r2 item 1), then scatters per-read
+dense same-stride batches, then scatters per-read
 results back to file order before formatting — so the CSV must be
 byte-identical to the file-order planner on any input, including
 mixed-length reads, N's, junk, paired mode, and out-of-core cycling.

@@ -1,6 +1,6 @@
 """Streaming ingestion: record-aligned slab iteration, native chunked
-paired-end merge, and bounded-memory classify_file parity (VERDICT r1 #5;
-reference mmap scan CuCLARK_hh.hh:522-539, mergePairedFiles file.cc:205-268).
+paired-end merge, and bounded-memory classify_file parity
+(reference mmap scan CuCLARK_hh.hh:522-539, mergePairedFiles file.cc:205-268).
 """
 
 import numpy as np
@@ -214,7 +214,7 @@ _QC_CASES = [
     b"@r1\nACGT\n+\nIIII\n",
     b"@r1\nACGT\n+\nIIII",  # no trailing newline
     b"@r1\nACGT\n+\nIIII\n@r2\nAC\n+\nII\n",
-    b"@r1\nACGT\n",  # truncated: header+seq kept (ADVICE parity rule)
+    b"@r1\nACGT\n",  # truncated: header+seq kept (reference parity rule)
     b"@r1\nACGT\n+\n",  # truncated after plus line
     b"@r1\nACGT\n+",  # plus line unterminated
     b"@r1\n",  # lone header with newline: no seq line start -> dropped
